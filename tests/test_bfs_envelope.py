@@ -14,7 +14,7 @@ import time
 import numpy as np
 import pytest
 
-from metafast_tpu.utils.kmers import sequence_kmers
+from metafast_jax.utils.kmers import sequence_kmers
 
 K = 25
 BASES = "AGCT"
@@ -28,7 +28,7 @@ def _chain_keys(n_nodes: int, seed: int) -> np.ndarray:
 
 @pytest.mark.parametrize("n_nodes", [2_000_000])
 def test_pivot_bfs_envelope(n_nodes):
-    from metafast_tpu.graph.pivot import split_around_pivot
+    from metafast_jax.graph.pivot import split_around_pivot
 
     keys = _chain_keys(n_nodes, seed=1)
     counts = np.ones(len(keys), dtype=np.int64)
@@ -48,7 +48,7 @@ def test_pivot_bfs_envelope(n_nodes):
 
 @pytest.mark.parametrize("n_nodes", [1_000_000])
 def test_colored_bfs_envelope(n_nodes):
-    from metafast_tpu.graph.colored import split_colored
+    from metafast_jax.graph.colored import split_colored
 
     keys = _chain_keys(n_nodes, seed=2)
     # all nodes colored group 0 with a dominant share

@@ -4,7 +4,7 @@ import glob
 
 import pytest
 
-from metafast_tpu.cli import main
+from metafast_jax.cli import main
 
 
 @pytest.fixture(scope="module")
@@ -105,7 +105,7 @@ def test_unknown_option_errors(tmp_path, ref_data, caplog):
 
 def test_oom_maps_to_advice(tmp_path, monkeypatch, caplog):
     import logging
-    from metafast_tpu.tools import framework as fw
+    from metafast_jax.tools import framework as fw
 
     class Boom(fw.get_tool("view")):
         def run_impl(self):
@@ -121,7 +121,7 @@ def test_oom_maps_to_advice(tmp_path, monkeypatch, caplog):
 
 def test_uncaught_exception_is_concise(tmp_path, monkeypatch, caplog):
     import logging
-    from metafast_tpu.tools import framework as fw
+    from metafast_jax.tools import framework as fw
 
     class Boom(fw.get_tool("view")):
         def run_impl(self):

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from metafast_tpu.cli import main
-from metafast_tpu.io import binfmt
-from metafast_tpu.oracle import reference as oracle
-from metafast_tpu.utils.kmers import kmer_string, kmers_strings, sequence_kmers
+from metafast_jax.cli import main
+from metafast_jax.io import binfmt
+from metafast_jax.oracle import reference as oracle
+from metafast_jax.utils.kmers import kmer_string, kmers_strings, sequence_kmers
 
 
 def test_kmer_string_matches_oracle():

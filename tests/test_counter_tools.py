@@ -7,9 +7,9 @@ src/io/IOUtils.java:125-161), src/tools/BitSetStatsKmers3GroupsFinder.java.
 
 import numpy as np
 
-from metafast_tpu.cli import main
-from metafast_tpu.io import binfmt
-from metafast_tpu.utils.kmers import kmers_strings
+from metafast_jax.cli import main
+from metafast_jax.io import binfmt
+from metafast_jax.utils.kmers import kmers_strings
 
 
 def _write_sample(tmp_path, name, table):

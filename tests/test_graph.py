@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from metafast_tpu.graph.contigs import build_contigs
-from metafast_tpu.graph.components import split_components
-from metafast_tpu.oracle import reference as oracle
+from metafast_jax.graph.contigs import build_contigs
+from metafast_jax.graph.components import split_components
+from metafast_jax.oracle import reference as oracle
 
 
 def make_counts(reads, k, b=0):
@@ -85,3 +85,79 @@ def test_components_match_oracle(k, b1, b2, seed):
     got_raw = split_components(keys, vals, k, b1, b2)
     got = norm_comps([(c.kmers, c.weight, c.used_freq_threshold) for c in got_raw])
     assert got == want
+
+
+def _padded(keys):
+    """(khi, klo, M) of sorted uint64 keys padded with SENTINEL rows."""
+    import metafast_jax.core.bitpack as bp
+
+    M0 = len(keys)
+    M = 1 << int(np.ceil(np.log2(max(M0, 16))))
+    khi = np.full(M, bp.SENTINEL, dtype=np.uint32)
+    klo = np.full(M, bp.SENTINEL, dtype=np.uint32)
+    khi[:M0] = (keys >> np.uint64(32)).astype(np.uint32)
+    klo[:M0] = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return khi, klo, M
+
+
+def test_component_labels_match_oracle_with_cycles():
+    """Level-1 labels partition the table as the oracle's BFS does,
+    including circular genomes (pure cycle chains, no heads)."""
+    from metafast_jax.graph.components import table_labels
+
+    rng = np.random.default_rng(11)
+    k = 13
+    table = {}
+    for g in range(4):
+        glen = int(rng.integers(300, 1200))
+        genome = "".join("ACGT"[i] for i in rng.integers(0, 4, glen))
+        if g < 3:                                   # circular
+            reads = [(genome + genome[:60])[s:s + 60]
+                     for s in range(0, glen, 7)]
+        else:
+            reads = [genome[s:s + 60] for s in rng.integers(0, glen - 60, 300)]
+        for key, c in oracle.count_reads(reads, k).items():
+            table[key] = table.get(key, 0) + c
+    keys = np.array(sorted(table), dtype=np.uint64)
+    khi, klo, _ = _padded(keys)
+    labels = table_labels(khi, klo, k)[:len(keys)]
+    got = {}
+    for key, lab in zip(keys.tolist(), labels.tolist()):
+        got.setdefault(lab, set()).add(key)
+    want = oracle._connected_components(set(table), k)
+    assert sorted(map(sorted, got.values())) == sorted(map(sorted, want))
+
+
+@pytest.mark.parametrize("seed", [0, 3, 31])
+def test_connected_labels_match_scipy(seed):
+    """The label fixed point on random symmetric graphs with inactive
+    vertices: each active vertex gets its component's minimum index,
+    inactive ones M."""
+    import jax.numpy as jnp
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from metafast_jax.graph.components import connected_labels
+
+    rng = np.random.default_rng(seed)
+    M = int(rng.integers(64, 2000))
+    nbr = np.full((8, M), -1, dtype=np.int32)
+    for _ in range(int(rng.integers(0, 3 * M))):
+        u, v = rng.integers(0, M, 2)
+        su, sv = rng.integers(0, 8, 2)
+        if u != v and nbr[su, u] < 0 and nbr[sv, v] < 0:
+            nbr[su, u], nbr[sv, v] = v, u
+    active = rng.random(M) < 0.6
+    labels = connected_labels(jnp.asarray(nbr), jnp.asarray(active))
+
+    src = np.broadcast_to(np.arange(M), nbr.shape)
+    e = (nbr >= 0) & active[src] & active[np.maximum(nbr, 0)]
+    graph = coo_matrix((np.ones(e.sum()), (src[e], nbr[e])), shape=(M, M))
+    _, comp = connected_components(graph, directed=False)
+    want = np.full(M, M)
+    idx = np.flatnonzero(active)
+    first = {}
+    for i in idx:
+        first.setdefault(comp[i], i)
+    want[idx] = [first[comp[i]] for i in idx]
+    assert np.array_equal(labels, want)

@@ -5,10 +5,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from metafast_tpu.core import bitpack as bp
-from metafast_tpu.core.extract import extract_canonical
-from metafast_tpu.ops.count import KmerCounter, count_flat
-from metafast_tpu.oracle import reference as oracle
+from metafast_jax.core import bitpack as bp
+from metafast_jax.core.extract import extract_canonical
+from metafast_jax.ops.count import KmerCounter, count_flat
+from metafast_jax.oracle import reference as oracle
 
 
 def split64(v):
@@ -149,7 +149,7 @@ def test_counting_merge_saturates_across_chunks():
 
 
 def test_cumsum_flat_matches_numpy():
-    from metafast_tpu.ops.count import _cumsum_flat
+    from metafast_jax.ops.count import _cumsum_flat
     rng = np.random.default_rng(11)
     for n in (5, 1000, 8192, 8193, 1 << 14, (1 << 14) + 777):
         x = rng.integers(0, 100, n).astype(np.int32)
@@ -158,7 +158,7 @@ def test_cumsum_flat_matches_numpy():
 
 
 def test_bucket_size_family():
-    from metafast_tpu.ops.count import _bucket_size
+    from metafast_jax.ops.count import _bucket_size
     assert _bucket_size(1) == 16
     assert _bucket_size(16) == 16
     assert _bucket_size(17) == 24
@@ -169,7 +169,7 @@ def test_bucket_size_family():
 
 def _hosted_oracle_check(keys64: np.ndarray):
     """Run count_flat_hosted on raw int64 keys, compare to numpy."""
-    from metafast_tpu.ops.count import count_flat_hosted
+    from metafast_jax.ops.count import count_flat_hosted
     u = keys64.astype(np.uint64)
     hi = jnp.asarray((u >> np.uint64(32)).astype(np.uint32))
     lo = jnp.asarray((u & np.uint64(0xFFFFFFFF)).astype(np.uint32))
@@ -231,7 +231,7 @@ def test_kmer_counter_spill_to_host():
     """Levels past the spill threshold move to host RAM; results are
     identical to the fully on-device path (HBM-scale guard)."""
     import numpy as np
-    from metafast_tpu.ops.count import KmerCounter
+    from metafast_jax.ops.count import KmerCounter
 
     rng = np.random.default_rng(3)
     batches = []
@@ -255,7 +255,7 @@ def test_kmer_counter_spill_to_host():
 def test_kmer_counter_finish_device_raises_after_spill():
     import numpy as np
     import pytest
-    from metafast_tpu.ops.count import KmerCounter
+    from metafast_jax.ops.count import KmerCounter
 
     rng = np.random.default_rng(4)
     c = KmerCounter(11, chunk=1 << 12, spill=1 << 10)
@@ -269,7 +269,7 @@ def test_k_bound_pinned():
     # the int64 key-order invariant in _fetch_table requires k <= 31
     # (2k-bit keys stay below 2^62); k = 32 would silently flip sign bits
     import pytest
-    from metafast_tpu.ops.count import KmerCounter
+    from metafast_jax.ops.count import KmerCounter
 
     for bad in (0, 32, 64):
         with pytest.raises(ValueError):
@@ -280,7 +280,7 @@ def test_k_bound_pinned():
 def test_sharded_k_bound_pinned():
     import pytest
     import jax
-    from metafast_tpu.parallel.count import ShardedKmerCounter, make_mesh
+    from metafast_jax.parallel.count import ShardedKmerCounter, make_mesh
 
     mesh = make_mesh(min(len(jax.devices()), 8))
     with pytest.raises(ValueError):

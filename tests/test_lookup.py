@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from metafast_tpu.core import bitpack as bp
-from metafast_tpu.graph import lookup
+from metafast_jax.core import bitpack as bp
+from metafast_jax.graph import lookup
 
 
 def _mk_table(rng, t):
@@ -146,7 +146,7 @@ def test_neighbor_tables_merge_vs_binary_dispatch(monkeypatch):
     exercise the merge join.
     """
     import jax.numpy as jnp
-    from metafast_tpu.graph import dbg
+    from metafast_jax.graph import dbg
 
     rng = np.random.default_rng(5)
     k = 15

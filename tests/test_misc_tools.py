@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from metafast_tpu.cli import main
-from metafast_tpu.io import binfmt
-from metafast_tpu.utils.kmers import sequence_kmers
+from metafast_jax.cli import main
+from metafast_jax.io import binfmt
+from metafast_jax.utils.kmers import sequence_kmers
 
 SEQ = "ACGGTCAGATTCAGGACTT"
 K = 9

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from metafast_tpu.io import native_reads
-from metafast_tpu.io import reads as pyreads
-from metafast_tpu.native import native_available
+from metafast_jax.io import native_reads
+from metafast_jax.io import reads as pyreads
+from metafast_jax.native import native_available
 
 pytestmark = pytest.mark.skipif(not native_available(),
                                 reason="no C++ toolchain")
@@ -81,8 +81,8 @@ def test_to_batches_roundtrip():
 
 def test_native_extract_matches_oracle(tmp_path):
     import ctypes
-    from metafast_tpu.native import load_library
-    from metafast_tpu.utils.kmers import sequence_kmers
+    from metafast_jax.native import load_library
+    from metafast_jax.utils.kmers import sequence_kmers
     lib = load_library()
     seqs = ["ACGGTCAGATTCAGGACTT", "TTGACCGTAGGTA"]
     k = 7
@@ -112,11 +112,11 @@ def test_crlf_and_double_cr_line_endings(tmp_path):
 
 def test_graph_baselines_match_oracle():
     """contig_walk_baseline / bfs_components_baseline (the bench's native
-    anchors for the graph stages, VERDICT r4 missing #3) agree with the
+    anchors for the graph stages) agree with the
     oracle on contig count, total contig length, and component count."""
     import ctypes
-    from metafast_tpu.native import load_library
-    from metafast_tpu.oracle import reference as oracle
+    from metafast_jax.native import load_library
+    from metafast_jax.oracle import reference as oracle
 
     lib = load_library()
     rng = np.random.default_rng(5)
@@ -148,3 +148,42 @@ def test_graph_baselines_match_oracle():
         len(keys), k, 16, ctypes.byref(n_comp))
     assert n_comp.value == len(comps)
     assert visited == len(keys)
+
+
+def test_build_key_tracks_source_flags_and_arch(tmp_path, monkeypatch):
+    """The library's file name hashes the source, the compiler command
+    and the architecture: change any one and the loader looks elsewhere."""
+    import metafast_jax.native.build as nb
+
+    base = nb.library_path()
+    assert base.parent == nb.BUILD_DIR and base.suffix == ".so"
+    src = tmp_path / "fastparse.cpp"
+    src.write_bytes(nb._SRC.read_bytes() + b"\n// edited\n")
+    monkeypatch.setattr(nb, "_SRC", src)
+    edited = nb.library_path()
+    monkeypatch.setattr(nb, "_SRC", nb._HERE / "fastparse.cpp")
+    monkeypatch.setattr(nb, "CXX_CMD", nb.CXX_CMD + ("-march=native",))
+    flagged = nb.library_path()
+    monkeypatch.undo()
+    monkeypatch.setattr(nb.platform, "machine", lambda: "other-arch")
+    foreign = nb.library_path()
+    assert len({base, edited, flagged, foreign}) == 4
+
+
+def test_stale_or_foreign_library_is_rebuilt_not_loaded(tmp_path,
+                                                        monkeypatch):
+    """Libraries under other keys (stale sources, another host) and the
+    old unkeyed file sit beside the build; the loader builds its own."""
+    import metafast_jax.native.build as nb
+
+    monkeypatch.setattr(nb, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(nb, "_lib", None)
+    monkeypatch.setattr(nb, "_tried", False)
+    junk = b"not a shared object"
+    (tmp_path / "fastparse-0000000000000000.so").write_bytes(junk)
+    (tmp_path / "_fastparse.so").write_bytes(junk)
+    lib = nb.load_library()
+    assert lib is not None
+    built = nb.library_path()
+    assert built.exists() and built.read_bytes() != junk
+    assert not list(tmp_path.glob("tmp*"))          # no half-written file

@@ -11,7 +11,7 @@ Reference intent: src/io/BytesDispatcher.java:39-67 (record-aligned
 import numpy as np
 import pytest
 
-from metafast_tpu.io import native_reads
+from metafast_jax.io import native_reads
 
 
 def _write_fasta(path, reads, width=None):

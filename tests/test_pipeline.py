@@ -4,7 +4,7 @@ published matrix (test_data/meta_test_matrix.txt, README.md:88-99)."""
 import numpy as np
 import pytest
 
-from metafast_tpu.pipeline import matrix_pipeline
+from metafast_jax.pipeline import matrix_pipeline
 
 GOLDEN = {
     (0, 1): 0.5691162409506898,
@@ -44,7 +44,7 @@ def test_vectors_positive(result):
 
 def test_oracle_agrees(ref_data):
     """The slow NumPy oracle and the JAX path produce identical matrices."""
-    from metafast_tpu.oracle import reference as o
+    from metafast_jax.oracle import reference as o
 
     files = [str(ref_data / f"meta_test_{i}.fa") for i in (1, 2, 3)]
     K, B, L, B1, B2 = 31, 1, 100, 1000, 10000
@@ -63,18 +63,10 @@ def test_oracle_agrees(ref_data):
             reads.append("".join(cur))
         return reads
 
-    samples = [o.count_reads(read_fasta(f), K) for f in files]
-    contigs = []
-    for counts in samples:
-        filt = o.filter_counts(counts, B)
-        contigs.extend(s[0] for s in o.build_contigs(filt, K, L))
-    graph = o.count_reads(contigs, K, min_len=L)
-    comps = o.split_components(graph, K, B1, B2)
-    vecs = np.array([
-        o.feature_vector(comps, o.filter_counts(c, B))[0] for c in samples
-    ], dtype=np.float64)
+    _, _, _, mat = o.matrix_pipeline([read_fasta(f) for f in files],
+                                     K, B, L, B1, B2)
     for (i, j), v in GOLDEN.items():
-        assert o.bray_curtis(vecs[i], vecs[j]) == pytest.approx(v, abs=1e-12)
+        assert mat[i, j] == pytest.approx(v, abs=1e-12)
 
 
 class _FakeComp:
@@ -84,7 +76,7 @@ class _FakeComp:
 
 def _feature_vectors_loop(components, keys, counts, threshold=0):
     """Brute-force per-component oracle (the pre-segment-sum semantics)."""
-    from metafast_tpu import api
+    from metafast_jax import api
     vec = np.zeros(len(components), dtype=np.int64)
     brd = np.zeros(len(components), dtype=np.float64)
     for i, c in enumerate(components):
@@ -99,7 +91,7 @@ def _feature_vectors_loop(components, keys, counts, threshold=0):
 
 
 def test_feature_vectors_segment_sum_parity():
-    from metafast_tpu.pipeline.matrix import feature_vectors
+    from metafast_jax.pipeline.matrix import feature_vectors
     rng = np.random.default_rng(7)
     universe = rng.choice(10_000, 3_000, replace=False).astype(np.int64)
     keys = np.sort(universe[:2_000])
@@ -118,7 +110,7 @@ def test_feature_vectors_segment_sum_parity():
 def test_feature_vectors_5k_components_fast():
     """5k components x ~100 k-mers each must finish in seconds (SURVEY §7-6)."""
     import time
-    from metafast_tpu.pipeline.matrix import feature_vectors
+    from metafast_jax.pipeline.matrix import feature_vectors
     rng = np.random.default_rng(11)
     keys = np.sort(rng.choice(1 << 40, 400_000, replace=False).astype(np.int64))
     counts = rng.integers(1, 1000, len(keys)).astype(np.int64)
@@ -134,11 +126,11 @@ def test_feature_vectors_5k_components_fast():
 def test_feature_segsum_device_matches_host():
     """The device feature segment-sum (pipeline/matrix.py
     _feature_segsum_jit) agrees with the host searchsorted+reduceat path
-    (VERDICT r4 #8); the routing gate is perf-only."""
+   ; the routing gate is perf-only."""
     import jax.numpy as jnp
 
-    from metafast_tpu import api
-    from metafast_tpu.pipeline import matrix as M
+    from metafast_jax import api
+    from metafast_jax.pipeline import matrix as M
 
     rng = np.random.default_rng(3)
     skeys = np.unique(rng.integers(0, 1 << 40, 20000).astype(np.int64))

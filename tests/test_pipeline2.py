@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from metafast_tpu.cli import main
-from metafast_tpu.graph import colored as col
-from metafast_tpu.io import binfmt
+from metafast_jax.cli import main
+from metafast_jax.graph import colored as col
+from metafast_jax.io import binfmt
 
 
 def test_colored_ops_pack_roundtrip():

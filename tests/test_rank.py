@@ -1,12 +1,11 @@
-"""Splitter-walk list ranking (graph/rank.py) and walk-based components.
+"""Splitter-walk list ranking (graph/rank.py).
 
-The r5 TPU graph stages stand on chain_rank: contigs take (term, dist,
-reached) from it, components contract its walk segments.  These tests
-pin it against an exact recursive oracle on random chain forests (with
-cycles), against the pointer-doubling path on real de Bruijn successor
-graphs, and pin the _compact_walks payload pairing that silently broke
-on the TPU backend in r5 (the done-mask was sliced from the unsorted
-sort key, killing ~87% of live walks after the first compaction).
+The contig stage takes (term, dist, reached) from chain_rank on large
+tables on a GPU.  These tests pin it against an exact recursive oracle on random chain forests
+(with cycles), against the pointer-doubling path on real de Bruijn
+successor graphs, and pin the _compact_walks payload pairing that once
+broke silently (the done-mask was sliced from the unsorted sort key,
+killing ~87% of live walks after the first compaction).
 """
 
 import numpy as np
@@ -14,7 +13,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from metafast_tpu.graph import rank
+from metafast_jax.graph import rank
 
 
 def _walk_oracle(succ):
@@ -92,12 +91,38 @@ def test_chain_rank_matches_oracle(seed):
         assert (np.asarray(r["walkid"]) >= 0).all()
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_chain_rank_walks_outgrowing_the_step_field(seed):
+    """Walks longer than the packed off field can count stop there and
+    the rest of their segment is ranked by the second pass — the case a
+    ~2^26-node table hits with the full 31-bit record."""
+    rng = np.random.default_rng(seed)
+    n = 20000
+    perm = rng.permutation(n)
+    succ = np.full(n, -1, dtype=np.int32)
+    bounds = np.r_[0, np.sort(rng.choice(np.arange(1, n), 5, replace=False)),
+                   n]
+    for j, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+        seg = perm[a:b]
+        succ[seg[:-1]] = seg[1:]
+        if j == 0 and len(seg) > 2:
+            succ[seg[-1]] = seg[0]                        # one cycle
+    o_term, o_dist, o_reached = _walk_oracle(succ)
+    r = rank.chain_rank(jnp.asarray(succ), jnp.asarray(np.ones(n, bool)),
+                        max_off_bits=7)                  # walks of <= 126
+    term, dist = np.asarray(r["term"]), np.asarray(r["dist"])
+    assert np.array_equal(np.asarray(r["reached"]), o_reached)
+    assert np.array_equal(term[o_reached], o_term[o_reached])
+    assert np.array_equal(dist[o_reached], o_dist[o_reached])
+    assert (np.asarray(r["walkid"]) >= 0).all()
+
+
 def test_chain_rank_matches_doubling_on_dbg():
     """On a real de Bruijn successor graph, chain_rank must agree with
     the pointer-doubling path on every valid row."""
-    from metafast_tpu.core import bitpack as bp
-    from metafast_tpu.graph import contigs as ct, dbg
-    from metafast_tpu.oracle import reference as oracle
+    from metafast_jax.core import bitpack as bp
+    from metafast_jax.graph import contigs as ct, dbg
+    from metafast_jax.oracle import reference as oracle
 
     rng = np.random.default_rng(3)
     bases = "ACGT"
@@ -130,7 +155,7 @@ def test_chain_rank_matches_doubling_on_dbg():
 
 @pytest.mark.parametrize("w_in,w_out", [(4096, 512), (1536, 96)])
 def test_compact_walks_preserves_live_tuples(w_in, w_out):
-    """Regression for the r5 TPU walk-death bug: the compacted done mask
+    """Regression for the walk-death bug: the compacted done mask
     must come from the SORTED key, or live walks are randomly marked
     done and their chain ranges go unvisited."""
     rng = np.random.default_rng(0)
@@ -149,70 +174,3 @@ def test_compact_walks_preserves_live_tuples(w_in, w_out):
     live_out = sorted(zip(c2[~d2].tolist(), wd2[~d2].tolist(),
                           t2[~d2].tolist()))
     assert live_in == live_out
-
-
-def test_walk_components_match_hooking_with_cycles():
-    """walk_connected_labels == hooking labels, including circular
-    genomes (pure cycle chains, no heads)."""
-    from metafast_tpu.core import bitpack as bp
-    from metafast_tpu.graph import components as C
-    from metafast_tpu.oracle import reference as oracle
-
-    rng = np.random.default_rng(11)
-    bases = "ACGT"
-    k = 13
-    table = {}
-    for g in range(3):
-        glen = int(rng.integers(300, 1200))
-        genome = "".join(bases[i] for i in rng.integers(0, 4, glen))
-        circ = genome + genome[:60]
-        reads = [circ[s:s + 60] for s in range(0, glen, 7)]
-        for key, c in oracle.count_reads(reads, k).items():
-            table[key] = table.get(key, 0) + c
-    genome = "".join(bases[i] for i in rng.integers(0, 4, 800))
-    for key, c in oracle.count_reads(
-            [genome[s:s + 60] for s in rng.integers(0, 740, 300)],
-            k).items():
-        table[key] = table.get(key, 0) + c
-    keys = np.array(sorted(table), dtype=np.uint64)
-    M0 = len(keys)
-    M = 1 << int(np.ceil(np.log2(max(M0, 16))))
-    khi = np.full(M, bp.SENTINEL, dtype=np.uint32)
-    klo = np.full(M, bp.SENTINEL, dtype=np.uint32)
-    khi[:M0] = (keys >> np.uint64(32)).astype(np.uint32)
-    klo[:M0] = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    active = np.zeros(M, bool)
-    active[:M0] = True
-    nbr = C.adjacency(jnp.asarray(khi), jnp.asarray(klo), k)
-    hook = np.asarray(C._connected_labels_device(nbr, jnp.asarray(active)))
-    walk = C.walk_connected_labels(jnp.asarray(khi), jnp.asarray(klo), k)
-    assert np.array_equal(hook, walk)
-
-
-@pytest.mark.parametrize("seed", [0, 3])
-def test_star_labels_match_hooking(seed):
-    """Single-device star contraction (used on the walk quotient) agrees
-    with the fused hooking fixed point on random symmetric graphs."""
-    from metafast_tpu.graph import components as C
-
-    rng = np.random.default_rng(seed)
-    M = int(rng.integers(64, 2000))
-    nbr = np.full((8, M), -1, dtype=np.int32)
-    used = np.zeros((8, M), dtype=bool)
-    for _ in range(int(rng.integers(0, 3 * M))):
-        u = rng.integers(0, M)
-        v = rng.integers(0, M)
-        if u == v:
-            continue
-        su = rng.integers(0, 8)
-        sv = rng.integers(0, 8)
-        if used[su, u] or used[sv, v]:
-            continue
-        nbr[su, u] = v
-        nbr[sv, v] = u
-        used[su, u] = used[sv, v] = True
-    active = rng.random(M) < 0.6
-    fused = np.asarray(C._connected_labels_device(
-        jnp.asarray(nbr), jnp.asarray(active)))
-    star = C.star_connected_labels(jnp.asarray(nbr), jnp.asarray(active))
-    assert np.array_equal(fused, star)

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from metafast_tpu.cli import main
-from metafast_tpu.io import binfmt
+from metafast_jax.cli import main
+from metafast_jax.io import binfmt
 
 
 def _write(tmp_path, name, kc):

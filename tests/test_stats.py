@@ -5,9 +5,9 @@ import math
 import numpy as np
 import pytest
 
-from metafast_tpu.cli import main
-from metafast_tpu.io import binfmt
-from metafast_tpu.stats.tests import (_rankdata_rows, chi2_invcdf_df1,
+from metafast_jax.cli import main
+from metafast_jax.io import binfmt
+from metafast_jax.stats.tests import (_rankdata_rows, chi2_invcdf_df1,
                                       chi2_invcdf_df2, chisq_reference,
                                       mannwhitney_p_rows)
 

@@ -1,7 +1,7 @@
 """Parity tests for the flat-stream extraction kernel (ops/stream_extract).
 
 The contract: the multiset of valid canonical k-mers produced by
-stream_extract (XLA fallback AND pallas interpret mode) equals the padded
+stream_extract equals the padded
 per-read oracle core.extract.extract_canonical — which is itself tested
 against hand-computed values and the reference semantics (itmo
 ShortKmer.java:104-150).
@@ -11,8 +11,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from metafast_tpu.ops import stream_extract as SE
-from metafast_tpu.core.extract import extract_canonical
+from metafast_jax.ops import stream_extract as SE
+from metafast_jax.core.extract import extract_canonical
 
 SENT = 0xFFFFFFFF
 
@@ -49,23 +49,11 @@ def test_stream_xla_matches_oracle(k):
     codes, lengths = _random_reads(rng, k)
     words, vmask, n_valid = SE.build_stream(codes, lengths, k,
                                             lane_multiple=8)
-    hi, lo = SE.stream_extract_xla(jnp.asarray(words), jnp.asarray(vmask), k)
+    hi, lo = SE.stream_extract(jnp.asarray(words), jnp.asarray(vmask), k)
     got = _live_keys(hi, lo)
     want = _oracle(codes, lengths, k)
     assert n_valid == len(want)
     assert np.array_equal(got, want)
-
-
-@pytest.mark.parametrize("k", [1, 15, 16, 17, 31])
-def test_stream_pallas_interpret_matches_xla(k):
-    rng = np.random.default_rng(200 + k)
-    codes, lengths = _random_reads(rng, k, n_reads=120)
-    words, vmask, _ = SE.build_stream(codes, lengths, k, lane_multiple=8)
-    w, v = jnp.asarray(words), jnp.asarray(vmask)
-    xhi, xlo = SE.stream_extract_xla(w, v, k)
-    phi, plo = SE.stream_extract_pallas(w, v, k, interpret=True)
-    assert np.array_equal(np.asarray(phi), np.asarray(xhi))
-    assert np.array_equal(np.asarray(plo), np.asarray(xlo))
 
 
 def test_stream_word_and_column_boundaries():
@@ -78,7 +66,7 @@ def test_stream_word_and_column_boundaries():
     codes = rng.integers(0, 4, int(lengths.sum()), dtype=np.uint8)
     words, vmask, n_valid = SE.build_stream(codes, lengths, k,
                                             lane_multiple=8)
-    hi, lo = SE.stream_extract_xla(jnp.asarray(words), jnp.asarray(vmask), k)
+    hi, lo = SE.stream_extract(jnp.asarray(words), jnp.asarray(vmask), k)
     got = _live_keys(hi, lo)
     want = _oracle(codes, lengths, k)
     # read of length 30 < k contributes nothing; 31 contributes exactly 1
@@ -91,7 +79,7 @@ def test_stream_empty_and_all_short():
     words, vmask, n_valid = SE.build_stream(
         np.zeros(0, np.uint8), np.zeros(0, np.int32), k, lane_multiple=8)
     assert n_valid == 0
-    hi, lo = SE.stream_extract_xla(jnp.asarray(words), jnp.asarray(vmask), k)
+    hi, lo = SE.stream_extract(jnp.asarray(words), jnp.asarray(vmask), k)
     assert len(_live_keys(hi, lo)) == 0
 
     lengths = np.full(5, k - 1, np.int32)
@@ -102,7 +90,7 @@ def test_stream_empty_and_all_short():
 
 
 def test_counter_stream_path_matches_padded():
-    from metafast_tpu.ops.count import KmerCounter
+    from metafast_jax.ops.count import KmerCounter
 
     k = 21
     rng = np.random.default_rng(3)
@@ -135,12 +123,12 @@ def test_stream3_multiset_matches_extract(tmp_path):
     never enter the sort)."""
     import collections
 
-    import metafast_tpu.native.build as nb
-    from metafast_tpu.core import bitpack as bp
-    from metafast_tpu.ops.count import KmerCounter
-    from metafast_tpu.ops.stream_extract import (build_stream3,
-                                                 stream3_extract_xla)
-    from metafast_tpu.utils.kmers import sequence_kmers
+    import metafast_jax.native.build as nb
+    from metafast_jax.core import bitpack as bp
+    from metafast_jax.ops.count import KmerCounter
+    from metafast_jax.ops.stream_extract import (build_stream3,
+                                                 stream3_extract)
+    from metafast_jax.utils.kmers import sequence_kmers
 
     rng = np.random.default_rng(5)
     B = "AGCT"
@@ -165,7 +153,7 @@ def test_stream3_multiset_matches_extract(tmp_path):
                 w0, w1, w2, vm, n_valid = build_stream3(codes, lengths, k)
             finally:
                 nb._lib = saved
-            hi, lo = stream3_extract_xla(
+            hi, lo = stream3_extract(
                 jnp.asarray(w0), jnp.asarray(w1), jnp.asarray(w2),
                 jnp.asarray(vm), k)
             hi = np.asarray(hi).ravel()

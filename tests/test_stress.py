@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 
 # Full CAMI-scale tests are opt-in; the default tier below (depth + spill
-# at reduced scale, VERDICT r3 #8) runs in every CI invocation.
+# at reduced scale) runs in every CI invocation.
 stress_only = pytest.mark.skipif(
     not os.environ.get("METAFAST_STRESS"),
     reason="stress tier is opt-in: set METAFAST_STRESS=1")
@@ -29,7 +29,7 @@ GENOME = 1_200_000       # per-sample genome
 SHARED = 450_000         # shared backbone between samples
 READ_LEN = 150
 COVERAGE = 8             # ~7.7M k-mers per sample (CPU-feasible; the
-                         # full CAMI-scale TPU config is `bench.py --stress`)
+                         # full-scale run is `chip_smoke.py` on a GPU)
 
 
 def _make_samples(tmp_path, n_samples=3, seed=0):
@@ -57,7 +57,7 @@ def _make_samples(tmp_path, n_samples=3, seed=0):
 
 @stress_only
 def test_cami_scale_matrix(tmp_path):
-    from metafast_tpu.pipeline import matrix_pipeline
+    from metafast_jax.pipeline import matrix_pipeline
 
     files = _make_samples(tmp_path)
     n_kmers_per_sample = GENOME * COVERAGE // READ_LEN * (READ_LEN - K + 1)
@@ -102,8 +102,8 @@ def test_cami_scale_matrix(tmp_path):
 def test_multichunk_consolidation_equivalence(tmp_path):
     """A counter forced through many small consolidation chunks must
     produce the identical table (finish() merge correctness at depth)."""
-    from metafast_tpu.io import native_reads
-    from metafast_tpu.ops.count import KmerCounter
+    from metafast_jax.io import native_reads
+    from metafast_jax.ops.count import KmerCounter
 
     files = _make_samples(tmp_path, n_samples=1, seed=7)
     codes, lengths, _ = native_reads.parse_file(files[0])
@@ -131,9 +131,9 @@ def test_default_tier_multichunk_depth_and_spill(tmp_path):
     consolidation chunks AND a tiny spill threshold (every level exits to
     host RAM) must reproduce the single-consolidation table bit-for-bit.
     This exercises the finish() merge depth + host-spill path that the
-    full CAMI tier covers at scale (VERDICT r3 #8)."""
-    from metafast_tpu.io import native_reads
-    from metafast_tpu.ops.count import KmerCounter
+    full CAMI tier covers at scale."""
+    from metafast_jax.io import native_reads
+    from metafast_jax.ops.count import KmerCounter
 
     rng = np.random.default_rng(3)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
